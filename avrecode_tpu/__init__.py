@@ -1,4 +1,4 @@
-"""avrecode_tpu — TPU-native lossless H.264 CABAC recompressor.
+"""avrecode_tpu — lossless H.264 CABAC recompressor.
 
 A from-scratch JAX/XLA/Pallas + C++ framework with the capabilities of the
 reference recoder (pbluc/avrecode-ms): bit-exact lossless recompression of
@@ -6,7 +6,8 @@ CABAC-entropy-coded H.264 streams via a richer adaptive context model.
 
 Layers (see SURVEY.md for the reference layer map this mirrors):
   ops/       — entropy coders: recoded-stream range coder, spec CABAC engine,
-               Pallas kernels and spec constant tables
+               the device lane coder (Pallas kernel + XLA scans) and spec
+               constant tables
   h264/      — forward H.264 CABAC slice parser (replaces the reference's
                hooked-ffmpeg control inversion, recode.cpp:79-237)
   models/    — adaptive probability model as dense arrays (replaces

@@ -2,7 +2,7 @@
 
 Pure index math, the analog of the reference's scan8/zigzag table block
 (recode.cpp:240-621 / C6) but defined directly on (x4, y4) grid coordinates
-instead of ffmpeg's scan8 layout — gather-friendly arrays for the TPU model.
+instead of ffmpeg's scan8 layout — gather-friendly arrays for the device model.
 """
 
 import numpy as np

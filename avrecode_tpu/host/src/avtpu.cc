@@ -757,7 +757,7 @@ static Bytes compress_gop_mt(const uint8_t* data, size_t size, int threads) {
 // -------------------------------------------------------- trace extract --
 // Device-pipeline host stage: parse + verify every slice (slice scope,
 // isolated priors) and emit container pieces + per-slice bin traces for
-// the TPU entropy stage.  Zero-copy handle design: the meta blob carries
+// the device entropy stage.  Zero-copy handle design: the meta blob carries
 // only the container pieces (u8 has_trace marker per slice); the packed
 // u64 trace records stay in the recorders' own buffers and are exposed by
 // pointer (avtpu_xtrace) until the handle is closed — no serialize/copy of

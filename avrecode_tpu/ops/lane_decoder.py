@@ -7,7 +7,7 @@ serial recurrences, so the decode direction vectorizes across lanes
 exactly like the encode direction — one range-decoder per lane, stepped
 over the bin axis.  `lane_decode_scan` is byte-exact against
 ops/rangecoder.RangeDecoder and inverts lane/host encoding bit-for-bit
-(tests/test_lane_decoder.py), and runs on CPU meshes and the real TPU.
+(tests/test_lane_decoder.py), and runs on CPU meshes and the GPU.
 
 Why this stays a prototype rather than the decompress product path — the
 measured argument lives in DEVICE_DECODE.md:
@@ -21,10 +21,8 @@ measured argument lives in DEVICE_DECODE.md:
     model-free streams) — not to container decompression.
   * the byte feed is data-dependent: each lane consumes 0-2 stream bytes
     per bin depending on its own renorm history, i.e. a per-lane dynamic
-    index into its stream.  XLA lowers that gather (take_along_axis) fine;
-    Mosaic/Pallas does not support per-lane vector gathers (round-1 probe
-    notes in ROADMAP.md), so the decode direction runs as an XLA scan, not
-    a hand kernel.
+    index into its stream.  XLA lowers that gather (take_along_axis), so
+    the decode direction runs as an XLA scan, not a hand kernel.
 
 Unsigned arithmetic rides int32 with wrapping semantics, same as
 lane_coder (SIGN-flip trick for unsigned compares).

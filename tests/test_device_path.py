@@ -128,7 +128,7 @@ def test_device_pipeline_gop_scope_matches_host():
         dev = pipeline.device_compress(data, scope=scope)
         assert dev == compress(data, scope=scope, substream_bins=4096), scope
         assert decompress(dev) == data
-        # legacy single-stream-per-trace device path
+        # single-stream-per-trace device path (estimator scans)
         dev0 = pipeline.device_compress(data, scope=scope, substream_bins=0)
         assert dev0 == compress(data, scope=scope), scope
         assert decompress(dev0) == data
@@ -139,7 +139,7 @@ def test_python_extraction_gop_scope_matches_host():
     native library the Python fallback can still drive the default gop-scope
     device pipeline, producing the host container byte-for-byte."""
     from avrecode_tpu.codec import compress, serialize_container
-    from avrecode_tpu.ops.lane_coder import encode_traces_lanes
+    from avrecode_tpu.ops.lane_coder import encode_traces_lanes, lane_encode_scan
     from avrecode_tpu.parallel import pipeline
 
     path = os.path.join(DATA, "rt_gop.mp4")
@@ -152,7 +152,7 @@ def test_python_extraction_gop_scope_matches_host():
     sps, pps, blocks, traces, _ = pipeline.extract_traces(
         data, use_native=False, scope="gop")
     assert len(traces) >= 2  # several GOPs, one trace each
-    envs = encode_traces_lanes(traces, 4096, use_pallas=False)
+    envs = encode_traces_lanes(traces, 4096, encode_fn=lane_encode_scan)
     finmap = {id(t): envs[i] for i, t in enumerate(traces)}
     out = serialize_container(
         2, sps, pps, blocks, None,
@@ -231,3 +231,32 @@ def test_device_decompress_end_to_end():
         data = open(f, "rb").read()
         blob = compress(data, **kw)
         assert device_decompress(blob) == data == decompress(blob)
+
+
+@pytest.mark.parametrize("env_dir", [None, "custom"])
+def test_compile_cache_placement(tmp_path, env_dir):
+    """Importing the pipeline leaves JAX_COMPILATION_CACHE_DIR to JAX when it
+    is set, and otherwise keeps the cache at the checkout's build/jaxcache."""
+    import json
+    import sys
+
+    root = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+    env = {k: v for k, v in os.environ.items()
+           if k != "JAX_COMPILATION_CACHE_DIR"}
+    env["JAX_PLATFORMS"] = "cpu"
+    if env_dir:
+        env["JAX_COMPILATION_CACHE_DIR"] = str(tmp_path / env_dir)
+    code = (
+        "import json, jax, avrecode_tpu.parallel.pipeline; c = jax.config; "
+        "print(json.dumps([c.jax_compilation_cache_dir, "
+        "c.jax_persistent_cache_min_compile_time_secs]))"
+    )
+    r = subprocess.run([sys.executable, "-c", code], env=env, cwd=root,
+                       capture_output=True, text=True, check=True)
+    cache_dir, min_secs = json.loads(r.stdout.strip().splitlines()[-1])
+    if env_dir:
+        assert cache_dir == str(tmp_path / env_dir)
+        assert min_secs == 1.0  # JAX's default: nothing set in code
+    else:
+        assert cache_dir == os.path.join(root, "build", "jaxcache")
+        assert min_secs == 2.0

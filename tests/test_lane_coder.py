@@ -1,5 +1,5 @@
-"""Lane-parallel estimator-free coder: every path (XLA scan, Pallas
-interpret, numpy finalize, device finalize) must produce sub-stream
+"""Lane-parallel estimator-free coder: every path (XLA scan, Pallas kernel
+in interpret mode, numpy finalize, device finalize) must produce sub-stream
 envelopes BYTE-IDENTICAL to the host RecodeModel(substream_bins=B).
 
 The host model is the semantics oracle; traces carry the exact per-bin
@@ -16,6 +16,7 @@ import pytest
 from avrecode_tpu.models.h264_model import RecodeModel
 from avrecode_tpu.models.trace import TraceModel
 from avrecode_tpu.ops.lane_coder import (
+    choose_lane_kernel,
     encode_traces_lanes,
     finalize_lanes,
     lane_encode_pallas,
@@ -56,13 +57,125 @@ def _mk(seed, n):
 @pytest.mark.parametrize("n", [0, 1, 63, 64, 65, 1024, 5000])
 def test_scan_matches_host(B, n):
     host, t = _drive(_mk(B * 1000 + n, n), B)
-    assert encode_traces_lanes([t], B, use_pallas=False)[0] == host
+    assert encode_traces_lanes([t], B, encode_fn=lane_encode_scan)[0] == host
 
 
 def test_pallas_interpret_matches_host():
     host, t = _drive(_mk(42, 3000), 512)
-    dev = encode_traces_lanes([t], 512, use_pallas=True, interpret=True)[0]
+    dev = encode_traces_lanes([t], 512, interpret=True)[0]
     assert dev == host
+
+
+def _ragged_problem(case):
+    rng = np.random.RandomState(len(case))
+    if case == "lanes_not_block_multiple":
+        L, B = 130, 64
+        lens = rng.randint(1, B + 1, L)
+    elif case == "zero_length_lanes":
+        L, B = 9, 40
+        lens = rng.randint(0, B + 1, L)
+        lens[::2] = 0
+    elif case == "odd_bins":
+        L, B = 5, 33
+        lens = np.full(L, B)
+        lens[-1] = 1
+    else:  # carry_stress: near-certain symbols coded against the grain
+        L, B = 3, 600
+        lens = np.array([B, B - 7, 300])
+    if case == "carry_stress":
+        p1 = np.full((L, B), 0xFFF0)
+        bit = np.ones((L, B), np.int64)
+        bit[:, ::97] = 0
+    else:
+        p1 = rng.randint(1, 0xFFFF, (L, B))
+        bit = rng.randint(0, 2, (L, B))
+    return (p1 | (bit << 16)).astype(np.int32), lens.astype(np.int32)
+
+
+@pytest.mark.parametrize(
+    "case",
+    ["lanes_not_block_multiple", "zero_length_lanes", "odd_bins",
+     "carry_stress"],
+)
+def test_kernel_interpret_matches_scan_ragged(case):
+    """The Pallas kernel (Triton route, interpret mode) pads lanes to its
+    block and bins to its unroll; tokens must equal the XLA scan's."""
+    bitp1, lens = _ragged_problem(case)
+    s = lane_encode_scan(bitp1, lens)
+    p = lane_encode_pallas(bitp1, lens, interpret=True)
+    for a, b in zip(s, p):
+        assert np.asarray(b).shape == np.asarray(a).shape
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.parametrize(
+    "platform,kernel", [("cpu", "scan"), ("gpu", "pallas"), ("rocm", None)]
+)
+def test_choose_lane_kernel(monkeypatch, platform, kernel):
+    import jax
+
+    monkeypatch.setattr(jax, "default_backend", lambda: platform)
+    if kernel is None:
+        with pytest.raises(RuntimeError, match="no lane kernel"):
+            choose_lane_kernel()
+    else:
+        assert choose_lane_kernel() == kernel
+
+
+def test_dispatch_group_sizes():
+    """Full groups of GROUP_LANES (per device), then one power-of-two tail
+    of at least LANE_BLOCK lanes per device."""
+    from avrecode_tpu.ops.lane_coder import (GROUP_LANES, LANE_BLOCK,
+                                             _group_sizes)
+
+    assert list(_group_sizes(1)) == [(0, 1, LANE_BLOCK)]
+    L = 2 * GROUP_LANES + LANE_BLOCK + 1
+    assert list(_group_sizes(L)) == [
+        (0, GROUP_LANES, GROUP_LANES),
+        (GROUP_LANES, 2 * GROUP_LANES, GROUP_LANES),
+        (2 * GROUP_LANES, L, 2 * LANE_BLOCK),
+    ]
+    # under a 4-device mesh every group splits evenly over the devices
+    assert list(_group_sizes(4 * GROUP_LANES + 3, 4)) == [
+        (0, 4 * GROUP_LANES, 4 * GROUP_LANES),
+        (4 * GROUP_LANES, 4 * GROUP_LANES + 3, 4 * LANE_BLOCK),
+    ]
+
+
+def test_mesh_sharded_pipeline_matches_single_device():
+    """Under a mesh the whole device pipeline (kernel + finalize) is
+    shard_mapped over the lane axis; the streams must equal the
+    single-device ones (kernel in interpret mode, 4 virtual devices)."""
+    import jax
+
+    from avrecode_tpu.ops.lane_coder import lane_streams_device
+    from avrecode_tpu.parallel.pipeline import make_mesh
+
+    if len(jax.devices()) < 4:
+        pytest.skip("needs the virtual CPU mesh (conftest)")
+    bitp1, lens = _ragged_problem("lanes_not_block_multiple")
+    one = lane_streams_device(bitp1, lens, interpret=True)
+    four = lane_streams_device(bitp1, lens, interpret=True, mesh=make_mesh(4))
+    assert four == one == finalize_lanes(*lane_encode_scan(bitp1, lens), lens)
+
+
+@pytest.mark.gpu
+def test_kernel_compiled_matches_scan_on_gpu():
+    """The kernel as compiled for the card (not interpreted) equals the XLA
+    scan run on the CPU device; run with `pytest -m gpu tests/`."""
+    import jax
+
+    if jax.default_backend() != "gpu":
+        pytest.skip("needs a GPU: run `python -m pytest -m gpu tests/`")
+    cpu = jax.devices("cpu")[0]
+    for case in ["lanes_not_block_multiple", "zero_length_lanes", "odd_bins",
+                 "carry_stress"]:
+        bitp1, lens = _ragged_problem(case)
+        p = lane_encode_pallas(bitp1, lens)
+        s = lane_encode_scan(jax.device_put(bitp1, cpu),
+                             jax.device_put(lens, cpu))
+        for a, b in zip(s, p):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 def test_carry_stress():
@@ -74,7 +187,7 @@ def test_carry_stress():
         bit = 1 if i % 101 else 0
         m.put_bit(("ctx", 0), bit)
         t.put_bit(("ctx", 0), bit)
-    assert encode_traces_lanes([t], 128, use_pallas=False)[0] == m.finish()
+    assert encode_traces_lanes([t], 128, encode_fn=lane_encode_scan)[0] == m.finish()
 
 
 def test_multi_trace_batch():
@@ -83,7 +196,7 @@ def test_multi_trace_batch():
         host, t = _drive(_mk(s, 700 + 631 * s), 256)
         hosts.append(host)
         traces.append(t)
-    devs = encode_traces_lanes(traces, 256, use_pallas=False)
+    devs = encode_traces_lanes(traces, 256, encode_fn=lane_encode_scan)
     assert devs == hosts
 
 
@@ -142,7 +255,7 @@ def test_real_clip_gop_scope_envelopes():
     B = 2000
     _, _, _, traces = native.extract(data, "gop")
     assert traces
-    envs = encode_traces_lanes(traces, B, use_pallas=False)
+    envs = encode_traces_lanes(traces, B, encode_fn=lane_encode_scan)
     for t, env in zip(traces, envs):
         m = RecodeModel("encode", substream_bins=B)
         # replay the recorded (bit, p1) pairs through the host coder path
@@ -191,8 +304,8 @@ def test_p1_idx_pack_roundtrip():
 
 
 def test_compact_idx_pipeline_matches_host():
-    """The real-TPU dispatch path (split_lanes_recs -> pack_p1_idx ->
-    _lane_pipeline_idx_jit, interpret mode) must produce envelopes
+    """The GPU dispatch path (split_lanes_recs -> pack_p1_idx ->
+    _lane_pipeline, kernel in interpret mode) must produce envelopes
     byte-identical to the host coder on a real clip's native traces."""
     from avrecode_tpu.host import native
     from avrecode_tpu.models.h264_model import _make_envelope
@@ -212,7 +325,7 @@ def test_compact_idx_pipeline_matches_host():
     B = 512
     _, _, _, traces = native.extract(data, "gop", want_slots=False)
     assert traces and all(hasattr(t, "recs32") for t in traces)
-    host_envs = encode_traces_lanes(traces, B, use_pallas=False)
+    host_envs = encode_traces_lanes(traces, B, encode_fn=lane_encode_scan)
     p1u16, bitw, lens, spans = split_lanes_recs(traces, B)
     streams = lane_streams_device_compact(p1u16, bitw, lens, interpret=True)
     envs = [_make_envelope(streams[lo:hi]) for lo, hi in spans]
